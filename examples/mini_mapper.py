@@ -22,7 +22,7 @@ Run on any backend:
 import numpy as np
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.ops import align, kmer, oracle, spec
+from cute_nucleotides_jax.ops import align, kmer, oracle, spec
 
 rng = np.random.default_rng(42)
 REF_L, N_READS, READ_L = 100_000, 128, 100

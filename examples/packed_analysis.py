@@ -6,7 +6,7 @@ of reads once, then computes — all on device, all from packed words:
 
 * GC content (masked popcount)
 * reverse complements (SWAR field reversal)
-* a k-mer spectrum (Pallas funnel-shift extraction + scatter-free MXU
+* a k-mer spectrum (planar funnel-shift extraction + scatter-add
   histogram)
 * all-pairs Hamming distances (length-chunked int8 one-hot matmuls)
 * approximate search (Myers bit-parallel edit distance, word-native scan)
@@ -21,8 +21,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.models import TwoBitCodec
-from cute_nucleotides_tpu.ops import distance, kmer, seqops, spec
+from cute_nucleotides_jax.models import TwoBitCodec
+from cute_nucleotides_jax.ops import distance, kmer, seqops, spec
 
 rng = np.random.default_rng(0)
 B, L = 64, 512
@@ -61,7 +61,7 @@ rejoined = seqops.packed_concat(
 assert np.array_equal(np.asarray(rejoined), np.asarray(words[0]).reshape(-1))
 print(f"packed_slice(37, 61) + packed_concat splice back: ok")
 
-# --- k-mer spectrum (Pallas extraction + MXU histogram) --------------------
+# --- k-mer spectrum (planar extraction + scatter-add histogram) -----------
 # reads are independent sequences: kmer_histogram_batch zeroes the per-row
 # successor stream so windows never span a read boundary (flattening the
 # batch would count (B-1)*(k-1) phantom junction k-mers), and masks ragged
@@ -81,7 +81,7 @@ print(f"top {k}-mers:",
       ", ".join(f"{kmer_str(int(c))}x{int(hist[c])}" for c in top))
 print(f"distinct {k}-mers: {(hist > 0).sum()} / {4 ** k}")
 
-# --- all-pairs distances (int8 MXU) ----------------------------------------
+# --- all-pairs distances (int8 one-hot products) -------------------------
 d = np.asarray(distance.pairwise_hamming(jnp.asarray(reads)))
 iu = np.triu_indices(B, 1)
 print(f"pairwise Hamming: mean {d[iu].mean():.1f} of {L} "
@@ -89,7 +89,7 @@ print(f"pairwise Hamming: mean {d[iu].mean():.1f} of {L} "
 assert (np.diag(d) == 0).all() and (d == d.T).all()
 
 # --- approximate search (Myers bit-parallel, no decode) --------------------
-from cute_nucleotides_tpu.ops import align
+from cute_nucleotides_jax.ops import align
 
 query = bytes(reads[7, 100:130])  # a 30-nt substring of read 7
 peq, qm = align.peq_from_bytes(query)

@@ -1,4 +1,4 @@
-"""End-to-end tour of the framework. Runs on CPU or TPU:
+"""End-to-end tour of the framework. Runs on CPU or GPU:
 
     python examples/quickstart.py
 """
@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 
 # --- 1. the reference-compatible host API ----------------------------------
-from cute_nucleotides_tpu import api, compat
+from cute_nucleotides_jax import api, compat
 
 words = api.n_to_bits(b"ATCGatcgUUUU")          # u64 packed, reference layout
 print("packed:", [hex(w) for w in words])
@@ -22,22 +22,22 @@ w5 = api.n_to_bits2(b"ATCGNatcgn")
 print("base-5:", bytes(api.bits_to_n2(w5, 10)))
 
 # --- 3. resident device batches (the production path) ----------------------
-from cute_nucleotides_tpu.models import TwoBitCodec
+from cute_nucleotides_jax.models import TwoBitCodec
 
-codec = TwoBitCodec()                            # pallas tier on TPU
+codec = TwoBitCodec()                            # the backend's XLA kernels
 batch, lengths = codec.pad([b"ACGTACGTACGTACGT" * 8] * 64)
 packed = codec.encode(jnp.asarray(batch))        # u32[B, W] on device
 print("batch packed:", packed.shape, packed.dtype)
 
 # --- 4. data-parallel over a device mesh -----------------------------------
-from cute_nucleotides_tpu import parallel
+from cute_nucleotides_jax import parallel
 
 dp_words = parallel.data_parallel_encode(jnp.asarray(batch), gather=True)
 print("mesh-encoded:", dp_words.shape, "on", len(jax.devices()), "device(s)")
 
 # --- 5. streaming pipeline with resume -------------------------------------
-from cute_nucleotides_tpu.parallel.runtime import StreamingEncoder
-from cute_nucleotides_tpu.utils.io import Record
+from cute_nucleotides_jax.parallel.runtime import StreamingEncoder
+from cute_nucleotides_jax.utils.io import Record
 
 records = [Record(b"r%d" % i, b"ACGT" * 100) for i in range(32)]
 enc = StreamingEncoder(batch_size=8, max_len=512)
@@ -45,7 +45,7 @@ stats = enc.run(records, sink=lambda words, b: None)
 print("streamed:", stats["total_reads"], "reads,", stats["total_nt"], "nt")
 
 # --- 6. packed-domain analytics (no decode needed) --------------------------
-from cute_nucleotides_tpu.ops import distance, seqops, spec
+from cute_nucleotides_jax.ops import distance, seqops, spec
 
 flat = np.ascontiguousarray(np.asarray(packed[0]))
 print("GC content:", int(seqops.gc_content_packed(jnp.asarray(flat))))
@@ -57,7 +57,7 @@ reads = jnp.asarray(batch[:8, :64])
 print("pairwise Hamming:\n", np.asarray(distance.pairwise_hamming(reads)))
 
 # --- 7. k-mers at production k (no decode, no hash table) --------------------
-from cute_nucleotides_tpu.ops import kmer
+from cute_nucleotides_jax.ops import kmer
 
 lo, hi, counts = kmer.kmer_counts(jnp.asarray(flat), int(lengths[0]), k=21,
                                   canonical=True)
@@ -69,7 +69,7 @@ print("distinct canonical 21-mers:", n_distinct,
 # encode side: a byte outside the alphabet flags on the encode's own HBM
 # read; decode side (base-5): a corrupt word (triplet >= 125 / pad bit)
 # flags on the decode's read.  Both raise before anything is delivered.
-from cute_nucleotides_tpu.models import Base5Codec
+from cute_nucleotides_jax.models import Base5Codec
 
 b5 = Base5Codec()
 reads5, lens5 = b5.pad([b"ACGTN" * 27] * 8)
@@ -81,7 +81,7 @@ print("stream intact:", not bool(corrupt))
 # --- 9. approximate matching (Myers bit-parallel, no decode) ----------------
 # best occurrence of a query in every read of the resident batch, then a
 # tiny host traceback turns the best hit into aligner output
-from cute_nucleotides_tpu.ops import align
+from cute_nucleotides_jax.ops import align
 
 query = b"ACGTACGAACGT"  # one substitution vs the reads' ACGT repeat
 peq, m = align.peq_from_bytes(query)

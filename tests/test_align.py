@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.ops import align, oracle, spec
+from cute_nucleotides_jax.ops import align, oracle, spec
 
 ALPHA = b"ACGT"
 
@@ -415,7 +415,7 @@ class TestModes:
     def test_best_match_stream_query_longer_than_panel(self, rng):
         """Halos spanning more successor rows than exist (long query on a
         short stream) must scan, not crash (r05 review reproducer)."""
-        from cute_nucleotides_tpu.ops import oracle as _oracle, spec as _spec
+        from cute_nucleotides_jax.ops import oracle as _oracle, spec as _spec
 
         for L, m in ((160, 120), (32, 30)):
             t = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=L)

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from cute_nucleotides_tpu import cli
-from cute_nucleotides_tpu.ops import oracle
+from cute_nucleotides_jax import cli
+from cute_nucleotides_jax.ops import oracle
 
 
 def test_nup_roundtrip(tmp_path):
@@ -316,7 +316,7 @@ def test_nup_reader_random_access(tmp_path):
 
 
 def test_cli_tier_choices_match_api():
-    from cute_nucleotides_tpu import api
+    from cute_nucleotides_jax import api
 
     assert cli._TIERS == api._TIERS
     # a typo'd tier dies as a clean argparse usage error, before any
@@ -337,10 +337,10 @@ def test_cli_decode_batch_fused_verify(tmp_path, capsys):
     capsys.readouterr()
     out_fa = str(tmp_path / "out.fa")
     assert cli.main(
-        ["decode", nup, out_fa, "--verify-stream", "--batch", "4", "--tier", "pallas"]
+        ["decode", nup, out_fa, "--verify-stream", "--batch", "4", "--tier", "auto"]
     ) == 0
     plain = str(tmp_path / "plain.fa")
-    assert cli.main(["decode", nup, plain, "--batch", "4", "--tier", "pallas"]) == 0
+    assert cli.main(["decode", nup, plain, "--batch", "4", "--tier", "auto"]) == 0
     assert open(out_fa, "rb").read() == open(plain, "rb").read()
     # corrupt record b's word: pad bit 63 of its (only) u64 word
     blob = bytearray(open(nup, "rb").read())
@@ -349,7 +349,7 @@ def test_cli_decode_batch_fused_verify(tmp_path, capsys):
     open(bad_nup, "wb").write(bytes(blob))
     before = open(out_fa, "rb").read()  # pre-existing output must survive
     rc = cli.main(
-        ["decode", bad_nup, out_fa, "--verify-stream", "--batch", "4", "--tier", "pallas"]
+        ["decode", bad_nup, out_fa, "--verify-stream", "--batch", "4", "--tier", "auto"]
     )
     assert rc == 1
     err = capsys.readouterr().err

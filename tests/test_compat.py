@@ -8,7 +8,7 @@ constants, plus sub-block inputs exercising tail handling.
 import numpy as np
 import pytest
 
-from cute_nucleotides_tpu import compat
+from cute_nucleotides_jax import compat
 
 GOLDEN_32 = [0b1101100011011000110110001101100011011000110110001101100011011000]
 GOLDEN_4 = [0b11011000]

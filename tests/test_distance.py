@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.ops import distance, oracle, spec, xla
+from cute_nucleotides_jax.ops import distance, oracle, spec, xla
 import jax
 
 
@@ -47,7 +47,7 @@ def test_pairwise_hamming(rng):
 
 def test_pairwise_hamming_chunked_and_packed(rng):
     """Chunked int8 path == naive; packed variant agrees on padded batch."""
-    from cute_nucleotides_tpu.ops import oracle, spec
+    from cute_nucleotides_jax.ops import oracle, spec
 
     B, L = 12, 100  # L not a chunk multiple
     reads = rng.choice(np.frombuffer(b"ACGTUacgtu", np.uint8), size=(B, L))

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.ops import kmer, oracle, spec
+from cute_nucleotides_jax.ops import kmer, oracle, spec
 
 CODE = {65: 0, 67: 1, 84: 2, 71: 3}  # A C T G (2-bit codes)
 COMP = {0: 2, 1: 3, 2: 0, 3: 1}
@@ -19,6 +19,16 @@ def _naive_codes(seq: bytes, k: int) -> list[int]:
         for j in range(k):
             c |= CODE[s[i + j]] << (2 * j)
         out.append(c)
+    return out
+
+
+def _naive_codes_np(seq: np.ndarray, k: int) -> np.ndarray:
+    """Vectorized :func:`_naive_codes` (same LSB-first code layout)."""
+    c = (seq.astype(np.int64) >> 1) & 3  # ASCII bits 1-2 == the 2-bit code
+    n = seq.size - k + 1
+    out = np.zeros(n, np.int64)
+    for j in range(k):
+        out |= c[j : j + n] << (2 * j)
     return out
 
 
@@ -138,26 +148,31 @@ def test_kmer_errors():
 
 
 @pytest.mark.parametrize("k", [1, 4, 6, 8])
-def test_kmer_histogram_pallas_matches_scatter(rng, k):
-    """The Pallas planar-extraction + MXU histogram == the scatter path,
-    including ragged lengths (tail positions masked to bin 0 + corrected)."""
+def test_kmer_histogram_matches_numpy(rng, k):
+    """kmer_histogram == a NumPy bincount of the naive codes, including
+    ragged lengths and the canonical fold."""
     for L in (k, 100, 16 * 512, 16 * 513 + 5, 40000):
         if L - k + 1 <= 0:
             continue
         seq = rng.choice(np.frombuffer(b"ACGTacgtu", np.uint8), L)
         w = _packed(seq)
-        want = np.asarray(kmer._kmer_histogram_scatter(w, L, k))
-        got = np.asarray(kmer._kmer_histogram_pallas(w, L, k))
+        codes = np.asarray(_naive_codes_np(seq, k))
+        want = np.bincount(codes, minlength=4**k)
+        got = np.asarray(kmer.kmer_histogram(w, L, k))
         assert np.array_equal(got, want), (L, k)
+        rc = np.array([_naive_rc(int(v), k) for v in codes[:2000]], np.int64)
+        canon = np.minimum(codes[:2000], rc)
+        gotc = np.asarray(kmer.kmer_histogram(w, L, k, canonical=True))
+        if L - k + 1 <= 2000:
+            assert np.array_equal(gotc, np.bincount(canon, minlength=4**k))
         wantc = np.asarray(
             kmer._kmer_histogram_scatter(w, L, k, canonical=True)
         )
-        gotc = np.asarray(kmer._kmer_histogram_pallas(w, L, k, canonical=True))
         assert np.array_equal(gotc, wantc), (L, k, "canonical")
 
 
 def test_kmer_codes_planar_is_position_permutation(rng):
-    """Planar kernel output at col W*s + w of row r == the XLA code at
+    """Planar output at col W*s + w of row r == the gather code at
     position 16*(r*W + w) + s (bit-exact, full funnel across word bounds)."""
     k, W = 8, 512
     L = 40000
@@ -186,9 +201,9 @@ def test_kmer_codes_planar_is_position_permutation(rng):
 
 def test_kmer_histogram_dispatcher():
     w = jnp.zeros(64, jnp.uint32)  # 1024 'A's
-    h8 = np.asarray(kmer.kmer_histogram(w, 1024, 8))   # pallas path
+    h8 = np.asarray(kmer.kmer_histogram(w, 1024, 8))
     assert h8[0] == 1024 - 8 + 1 and h8[1:].sum() == 0
-    h9 = np.asarray(kmer.kmer_histogram(w, 1024, 9))   # scatter path
+    h9 = np.asarray(kmer.kmer_histogram(w, 1024, 9))
     assert h9[0] == 1024 - 9 + 1 and h9[1:].sum() == 0
 
 
@@ -323,37 +338,36 @@ def test_minimizers_short_read_and_errors(rng):
         kmer.minimizers(_packed(s), 40, 15, 0)
 
 
-# --- Pallas minimizer scan (kernel-routed above _MZ_THRESHOLD words) --------
+# --- long streams (the sizes a fused minimizer scan once served) -----------
 
 
-def _minimizers_xla_mask(words, length, k, w, canonical=True):
-    """The pure-XLA windowed-pass form, bypassing the kernel route."""
-    h = kmer.kmer_hashes(words, length, k, canonical=canonical)
-    n = h.shape[0]
-    wm = kmer._windowed(
-        h, w - 1, jnp.minimum, jnp.uint32(0xFFFFFFFF), left=False
-    )
-    wm = jnp.where(jnp.arange(n) <= n - w, wm, 0)
-    best = kmer._windowed(wm, w - 1, jnp.maximum, jnp.uint32(0), left=True)
-    return np.asarray(h == best)
+def _minimizers_np(h: np.ndarray, w: int) -> np.ndarray:
+    """Vectorized NumPy oracle of the minimizer rule: window minima, then
+    the largest window minimum among the windows holding each position."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    n = h.size
+    wm = sliding_window_view(h, w).min(axis=1)  # n - w + 1 window minima
+    padded = np.concatenate([np.zeros(w - 1, h.dtype), wm, np.zeros(w - 1, h.dtype)])
+    best = sliding_window_view(padded, w).max(axis=1)[:n]
+    return h == best
 
 
 @pytest.mark.parametrize(
     "L,k,w,canonical",
     [
-        (16 * 1024 + 5, 15, 10, True),    # one kernel row + ragged tail
-        (16 * 2048, 15, 10, True),        # exactly two rows (seam crossing)
+        (16 * 1024 + 5, 15, 10, True),
+        (16 * 2048, 15, 10, True),
         (16 * 1500, 7, 64, False),
-        (16 * 1100 + 3, 15, 2033, True),  # w - 1 == 16*MZ_OV - k boundary
-        (16 * 1024, 1, 5, True),          # k=1 floor
+        (16 * 1100 + 3, 15, 2033, True),
+        (16 * 1024, 1, 5, True),
     ],
 )
-def test_minimizer_kernel_matches_xla(rng, L, k, w, canonical):
+def test_minimizers_long_stream_match_numpy(rng, L, k, w, canonical):
     s = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=L)
     words = _packed(s)
-    assert kmer._route_minimizer_kernel(words.size, L - k + 1, k, w)
-    got, _ = kmer.minimizers(words, L, k, w, canonical=canonical)
-    want = _minimizers_xla_mask(words, L, k, w, canonical=canonical)
+    got, h = kmer.minimizers(words, L, k, w, canonical=canonical)
+    want = _minimizers_np(np.asarray(h), w)
     assert np.array_equal(np.asarray(got), want)
 
 
@@ -372,15 +386,15 @@ def test_minimizer_bits_packed_contract(rng, L, k, w):
     assert not unp[n:].any()
 
 
-def test_minimizer_kernel_route_predicate():
-    from cute_nucleotides_tpu.ops import pallas_kernels as pk
-
-    ov = 16 * pk.MZ_OV
-    assert kmer._route_minimizer_kernel(2048, 30000, 15, ov - 15 + 1)
-    assert not kmer._route_minimizer_kernel(2048, 30000, 15, ov - 15 + 2)
-    assert not kmer._route_minimizer_kernel(1023, 16000, 15, 10)  # small
-    assert not kmer._route_minimizer_kernel(2048, 30000, 16, 10)  # k > 15
-    assert not kmer._route_minimizer_kernel(2048, 5, 15, 10)      # n <= w
+def test_minimizer_bits_short_read_single_window(rng):
+    """n <= w: one partial window, every minimum-hash position flagged."""
+    s = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=40)
+    words = _packed(s)
+    bits = np.asarray(kmer.minimizer_bits(words, 40, 31, 64))
+    mask, h = map(np.asarray, kmer.minimizers(words, 40, 31, 64))
+    unp = ((bits[:, None] >> np.arange(16)) & 1).astype(bool).reshape(-1)
+    assert np.array_equal(unp[: mask.size], mask) and not unp[mask.size :].any()
+    assert np.all(h[mask] == h.min())
 
 
 @pytest.mark.parametrize(
@@ -389,8 +403,8 @@ def test_minimizer_kernel_route_predicate():
      (5000, 15, True), (300, 8, True), (40, 31, True)],
 )
 def test_kmer_hashes_planar_multiset(rng, L, k, canonical):
-    """Planar kernel hashes = the position-ordered gather hashes as a
-    multiset, with every invalid/padded slot at SENTINEL."""
+    """Planar hashes = the position-ordered gather hashes as a multiset,
+    with every invalid/padded slot at SENTINEL."""
     s = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=L)
     w = _packed(s)
     hp = np.asarray(kmer.kmer_hashes_planar(w, L, k, canonical=canonical))

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from cute_nucleotides_tpu.ops import native, oracle
+from cute_nucleotides_jax.ops import native, oracle
 
 ALPHABET = np.frombuffer(b"ACGTUNacgtun", dtype=np.uint8)
 
@@ -75,7 +75,7 @@ def test_asan_selftest():
         pytest.skip("no native toolchain")
     d = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "cute_nucleotides_tpu",
+        "cute_nucleotides_jax",
         "native",
     )
     r = subprocess.run(
@@ -86,7 +86,7 @@ def test_asan_selftest():
 
 
 def test_native_myers_vs_oracle(rng):
-    from cute_nucleotides_tpu.ops import align
+    from cute_nucleotides_jax.ops import align
 
     for _ in range(20):
         m = int(rng.integers(1, 90))
@@ -102,7 +102,7 @@ def test_native_myers_vs_oracle(rng):
 
 
 def test_native_prefix_match(rng):
-    from cute_nucleotides_tpu.ops import align, oracle, spec
+    from cute_nucleotides_jax.ops import align, oracle, spec
 
     for _ in range(10):
         m = int(rng.integers(1, 70))

@@ -9,7 +9,7 @@ against the oracle, so these constants anchor the whole build.
 import numpy as np
 import pytest
 
-from cute_nucleotides_tpu.ops import oracle, spec
+from cute_nucleotides_jax.ops import oracle, spec
 
 GOLDEN_2BIT_32 = np.array(
     [0b1101100011011000110110001101100011011000110110001101100011011000],

@@ -8,9 +8,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.ops import oracle, spec
-from cute_nucleotides_tpu import parallel
-from cute_nucleotides_tpu.parallel import longseq, mesh as mesh_lib
+from cute_nucleotides_jax.ops import oracle, spec
+from cute_nucleotides_jax import parallel
+from cute_nucleotides_jax.parallel import longseq, mesh as mesh_lib
 
 ALPHABET = np.frombuffer(b"ACGTUacgtu", dtype=np.uint8)
 ALPHABET_N = np.frombuffer(b"ACGTUNacgtun", dtype=np.uint8)
@@ -42,16 +42,14 @@ def test_data_parallel_encode_matches_oracle(rng, gather):
 
 
 def test_data_parallel_encode_mxu_variant(rng):
-    """The documented pallas 'mxu' variant must route through the
-    whole-word MXU pack in the data-parallel paths too (r05 review: the
-    encode_2bit factory lacked jit_encode_2bit's routing and crashed
-    with KeyError at trace time)."""
-    B, L = 16, 512  # mxu pack needs C % 512 == 0 nt4 lanes -> L % 2048? use wide L
+    """Every 2-bit encode variant routes through the data-parallel path
+    ("dot", the pext slot, here); an unknown tier is refused."""
+    B = 16
     batch = rng.choice(ALPHABET, size=(B, 2048))
+    with pytest.raises(ValueError, match="unknown device tier"):
+        parallel.data_parallel_encode(jnp.asarray(batch), tier="pallas", variant="mul")
     out = np.asarray(
-        parallel.data_parallel_encode(
-            jnp.asarray(batch), tier="pallas", variant="mxu"
-        )
+        parallel.data_parallel_encode(jnp.asarray(batch), tier="xla", variant="dot")
     )
     assert out.shape == (B, 2048 // 16)
     for b in range(B):
@@ -63,7 +61,7 @@ def test_data_parallel_encode_mxu_variant(rng):
 def test_kmer_spectrum_sharded_matches_single_device(rng):
     """psum-merged spectrum over the 8-device mesh == the batched histogram
     on one device, with ragged per-read lengths."""
-    from cute_nucleotides_tpu.ops import kmer
+    from cute_nucleotides_jax.ops import kmer
 
     B, L, k = 16, 96, 6
     reads = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(B, L))
@@ -169,19 +167,19 @@ def test_shard_points_alignment():
 
 
 def test_data_parallel_pallas_tier(rng):
-    """The production config (pallas kernels inside shard_map) composes; on
-    the CPU mesh the kernels auto-fall back to interpret mode."""
+    """The production config ("auto" tier inside shard_map) composes and
+    round-trips bit-exactly."""
     B, L = 8, 64
     batch = rng.choice(ALPHABET, size=(B, L))
     out = np.asarray(
-        parallel.data_parallel_encode(jnp.asarray(batch), tier="pallas")
+        parallel.data_parallel_encode(jnp.asarray(batch), tier="auto")
     )
     for b in range(B):
         assert np.array_equal(
             spec.u32_pairs_to_u64(out[b]), oracle.n_to_bits_lut(batch[b])
         )
     back = np.asarray(
-        parallel.data_parallel_decode(jnp.asarray(out), tier="pallas")
+        parallel.data_parallel_decode(jnp.asarray(out), tier="auto")
     )
     want = np.frombuffer(
         batch.tobytes().upper().replace(b"U", b"T"), dtype=np.uint8
@@ -190,12 +188,12 @@ def test_data_parallel_pallas_tier(rng):
 
 
 def test_checked_encode_in_shard_map(rng):
-    """The fused encode+validate kernel composes with data-parallel
-    shard_map: per-shard flags reduce to a global any() via psum."""
+    """The checked encode composes with data-parallel shard_map:
+    per-shard flags reduce to a global any() via psum."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from cute_nucleotides_tpu.ops import pallas_kernels as pk
+    from cute_nucleotides_jax.ops import xla
 
     B, L = 16, 512
     batch = rng.choice(ALPHABET, size=(B, L))
@@ -203,7 +201,7 @@ def test_checked_encode_in_shard_map(rng):
     m = parallel.make_mesh()
 
     def shard_fn(x):
-        words, bad = pk.encode_2bit_words_checked(x, "mul")
+        words, bad = xla.encode_2bit_words_checked(x, "mul")
         return words, jax.lax.psum(
             bad.any().astype(jnp.int32), mesh_lib.DATA_AXIS
         )
@@ -231,7 +229,7 @@ def test_checked_encode_in_shard_map(rng):
 def test_match_long_sharded_boundaries(rng):
     """Sharded pattern scan == single-device scan, incl. hits that straddle
     the shard-boundary halo exchange."""
-    from cute_nucleotides_tpu.ops import search, spec
+    from cute_nucleotides_jax.ops import search, spec
 
     L = 50_000
     s = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=L)
@@ -262,7 +260,7 @@ def test_match_long_sharded_boundaries(rng):
 def test_match_long_b5_sharded(rng):
     """Base-5 sharded exact search == single-stream scan, with hits planted
     across every 8-way shard boundary (27-nt words never align to 2^k)."""
-    from cute_nucleotides_tpu.ops import search, spec
+    from cute_nucleotides_jax.ops import search, spec
 
     L = 54_000
     s = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=L)
@@ -288,18 +286,19 @@ def test_match_long_b5_sharded(rng):
     m = parallel.make_mesh(data=1, seq=8)
     got2 = longseq.match_long_b5(bits2, 1000, b"ANA", mesh=m)
     assert np.array_equal(got2, [997])
-    # over-long queries must be REFUSED, not silently mis-scanned: the
-    # kernel row's fixed overlap bounds the max tap offset (r05 review)
-    with pytest.raises(ValueError, match="caps queries"):
-        longseq.match_long_b5(
-            bits, L, bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 1025))
-        )
+    # a long query (1025 nt, past any fixed row overlap) straddling a
+    # shard boundary is still found exactly once, through the halo
+    p = 27 * (3 * weq) - 500
+    long_q = bytes(s[p : p + 1025])
+    got3 = longseq.match_long_b5(bits, L, long_q)
+    assert p in got3.tolist()
+    assert np.array_equal(got3, search.match_positions_b5(w32, L, long_q))
 
 
 def test_best_match_long_sharded(rng):
     """Sharded approximate search == DP oracle, incl. a one-error hit that
     straddles the shard-boundary halo exchange."""
-    from cute_nucleotides_tpu.ops import align, spec
+    from cute_nucleotides_jax.ops import align, spec
 
     L = 20_000
     s = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=L)
@@ -325,7 +324,7 @@ def test_best_match_long_sharded(rng):
 
 def test_edit_distances_data_parallel(rng):
     """Sharded batched edit distance == single-device op, both codecs."""
-    from cute_nucleotides_tpu.ops import align
+    from cute_nucleotides_jax.ops import align
 
     B, m, n = 16, 40, 70
     qs = [rng.choice(np.frombuffer(b"ACGT", np.uint8), size=m) for _ in range(B)]
@@ -358,7 +357,7 @@ def test_edit_distances_data_parallel(rng):
 
 def test_best_match_long_b5_sharded(rng):
     """Base-5 sharded approximate search == digit-DP oracle, boundary hit."""
-    from cute_nucleotides_tpu.ops import align, spec
+    from cute_nucleotides_jax.ops import align, spec
 
     L = 27 * 500  # 13500 nt
     s = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=L)

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cute_nucleotides_tpu.ops import oracle, search, spec
+from cute_nucleotides_jax.ops import oracle, search, spec
 
 
 @pytest.fixture
@@ -68,7 +68,7 @@ def test_match_mask_multiword_query(rng):
 
 
 def test_match_bits_matches_mask(rng):
-    """The Pallas packed-bitmask tier agrees with the XLA mask tier."""
+    """The packed-bitmask scan agrees with the gather mask."""
     for L, query in (
         (300, b"ACGT"),
         (9000, b"GATTACA"),
@@ -250,7 +250,7 @@ def test_match_batch_ragged(rng, codec):
 
 def test_match_counts_sharded(rng):
     """parallel.match_counts over the 8-device mesh == batched counts."""
-    from cute_nucleotides_tpu import parallel
+    from cute_nucleotides_jax import parallel
 
     B, L = 16, 64
     query = b"GATTACA"
@@ -274,12 +274,12 @@ def test_match_counts_sharded(rng):
 
 
 def test_match_bits_b5_matches_mask(rng):
-    """The base-5 Pallas packed-bitmask tier agrees with the XLA mask tier
-    across row seams, phases, wildcards, and ragged tails."""
+    """The base-5 packed-bitmask scan agrees with the mask across row
+    seams, phases, wildcards, and ragged tails."""
     alpha = np.frombuffer(b"ACGTN", np.uint8)
     for L, query in (
         (13824 + 311, b"GATTACA"),       # row seam + ragged tail
-        (13824, b"TAN?GA"),              # exactly one kernel row
+        (13824, b"TAN?GA"),              # exactly one bitmask row
         (27 * 80, b"A"),                 # sub-row stream, 1-nt query
         (30000, b"??C??"),               # wildcards across phases
         (14000, b"ACGTN" * 9),           # 45-nt query, multi-triplet fold
@@ -334,30 +334,26 @@ def test_match_bits_prefilter_fuzz(rng):
 
 
 def test_match_b5_routing_parity(rng):
-    """count/positions give identical answers on both sides of the kernel
-    routing threshold (and the kernel tier is reachable above it)."""
+    """count/positions agree with the mask and the packed bitmask on
+    short and long streams (the sizes either side of a former kernel
+    routing threshold)."""
     alpha = np.frombuffer(b"ACGTN", np.uint8)
     query = b"GAT?ACA"
     for L in (27 * 18, 27 * 600):  # 972 nt (36 words) / 16200 nt (1200 u32)
         seq = np.asarray(rng.choice(alpha, L))
         seq[5 : 5 + 7] = np.frombuffer(b"GATAACA", np.uint8)
         w = _enc5(bytes(seq))
-        routed = search._use_b5_kernel(w, query)
-        assert routed == (w.shape[0] >= search._B5_SEARCH_THRESHOLD)
         want = np.flatnonzero(np.asarray(search.match_mask_b5(w, L, query)))
         assert np.array_equal(search.match_positions_b5(w, L, query), want)
         assert int(search.match_count_b5(w, L, query)) == want.size
-    # both sides exercised
-    assert not search._use_b5_kernel(_enc5(b"ACGTN" * 100), query)
-    assert search._use_b5_kernel(
-        _enc5(b"ACGTN" * (27 * 120)), query
-    )
+        bits = np.asarray(search.match_bits_b5(w, L, query))
+        assert int(np.sum([bin(int(v)).count("1") for v in bits.reshape(-1)])) == want.size
 
 
 def test_match_bits_b5_errors():
     w = _enc5(b"ACGTN" * 600)
-    with pytest.raises(ValueError, match="caps queries"):
-        search.match_bits_b5(w, 3000, b"A" * 1025)
+    with pytest.raises(ValueError, match="shorter than query"):
+        search.match_bits_b5(w, 3000, b"A" * 3001)
     with pytest.raises(ValueError, match="shorter than query"):
         search.match_bits_b5(w, 3, b"ACGTN")
     with pytest.raises(TypeError, match="interleaved"):

@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.ops import oracle, seqops, spec, xla
+from cute_nucleotides_jax.ops import oracle, seqops, spec, xla
 
 COMP = bytes.maketrans(b"ACGT", b"TGCA")
 
@@ -457,7 +457,7 @@ def test_translate_b5_errors():
 
 class TestDuplicateMask:
     def _pack_rows(self, seqs):
-        from cute_nucleotides_tpu.ops import oracle, spec
+        from cute_nucleotides_jax.ops import oracle, spec
 
         lens = np.array([len(s) for s in seqs], np.int32)
         W = 2 * max(1, -(-int(lens.max()) // 32))
@@ -469,7 +469,7 @@ class TestDuplicateMask:
         return rows, lens
 
     def test_vs_dict_oracle(self, rng):
-        from cute_nucleotides_tpu.ops import seqops
+        from cute_nucleotides_jax.ops import seqops
 
         pool = [
             bytes(rng.choice(list(b"ACGT"), size=int(rng.integers(5, 60))).astype(np.uint8))
@@ -486,7 +486,7 @@ class TestDuplicateMask:
         assert list(got) == want
 
     def test_case_and_padding_fold(self):
-        from cute_nucleotides_tpu.ops import seqops
+        from cute_nucleotides_jax.ops import seqops
 
         # 'acgu' encodes identically to 'ACGT'; a prefix is NOT a dup
         rows, lens = self._pack_rows([b"ACGT", b"acgu", b"ACG", b"ACGT"])
@@ -494,7 +494,7 @@ class TestDuplicateMask:
         assert list(got) == [False, True, False, True]
 
     def test_length_distinguishes_padded_equals(self):
-        from cute_nucleotides_tpu.ops import seqops
+        from cute_nucleotides_jax.ops import seqops
 
         # same packed words ('A' padding) but different lengths
         rows, lens = self._pack_rows([b"ACGTA", b"ACGT"])
@@ -506,7 +506,7 @@ class TestDuplicateMask:
 
 class TestGcBins:
     def test_vs_byte_oracle(self, rng):
-        from cute_nucleotides_tpu.ops import oracle, seqops, spec
+        from cute_nucleotides_jax.ops import oracle, seqops, spec
 
         L = 5000
         s = rng.choice(np.frombuffer(b"ACGTacgtu", np.uint8), size=L)
@@ -525,7 +525,7 @@ class TestGcBins:
             np.testing.assert_array_equal(got, want)
 
     def test_batched_and_guard(self, rng):
-        from cute_nucleotides_tpu.ops import seqops
+        from cute_nucleotides_jax.ops import seqops
 
         rows = rng.integers(0, 2**32, (4, 8), dtype=np.uint64).astype(
             np.uint32

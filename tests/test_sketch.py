@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.ops import oracle, sketch, spec
-from cute_nucleotides_tpu import parallel
+from cute_nucleotides_jax.ops import oracle, sketch, spec
+from cute_nucleotides_jax import parallel
 
 CODE = {65: 0, 67: 1, 84: 2, 71: 3}  # A C T G
 COMP = {0: 2, 1: 3, 2: 0, 3: 1}

@@ -1,11 +1,11 @@
-"""Layout-switching bitonic sort vs np.lexsort (the platform-sort oracle)."""
+"""Two-key u32 pair sort vs np.lexsort (the host oracle)."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from cute_nucleotides_tpu.ops import sort
+from cute_nucleotides_jax.ops import sort
 
 
 def _oracle(hi, lo):
@@ -13,17 +13,14 @@ def _oracle(hi, lo):
     return hi[order], lo[order]
 
 
+COLS = 1024
+
+
 def _check(hi, lo):
-    # both dispatch targets must produce the exact lexsort: the default
-    # lax path AND the bitonic kernel network (the measured-proof
-    # artifact — interpret mode on the CPU mesh)
     wh, wl = _oracle(hi, lo)
-    for prefer in ("lax", "bitonic"):
-        hs, ls = sort.sort_pairs(
-            jnp.asarray(hi), jnp.asarray(lo), prefer=prefer
-        )
-        assert np.array_equal(np.asarray(hs), wh), prefer
-        assert np.array_equal(np.asarray(ls), wl), prefer
+    hs, ls = sort.sort_pairs(jnp.asarray(hi), jnp.asarray(lo))
+    assert np.array_equal(np.asarray(hs), wh)
+    assert np.array_equal(np.asarray(ls), wl)
 
 
 @pytest.mark.parametrize(
@@ -31,11 +28,11 @@ def _check(hi, lo):
     [
         1,
         17,
-        4096 - 1,          # below the kernel route -> lax.sort fallback
-        4 * sort.BITONIC_COLS,        # smallest kernel-path size, exact pow2
-        8 * sort.BITONIC_COLS,
-        8 * sort.BITONIC_COLS + 37,   # non-pow2 -> sentinel padding
-        16 * sort.BITONIC_COLS - 1,
+        4096 - 1,
+        4 * COLS,
+        8 * COLS,
+        8 * COLS + 37,   # not a power of two
+        16 * COLS - 1,
     ],
 )
 def test_sort_pairs_matches_lexsort(rng, n):
@@ -47,7 +44,7 @@ def test_sort_pairs_matches_lexsort(rng, n):
 def test_sort_pairs_kmer_shaped_keys(rng):
     """The kmer_counts key distribution: small hi (2k-32 bits), many
     sentinel pairs at 0xFFFFFFFF, heavy lo duplication."""
-    n = 8 * sort.BITONIC_COLS
+    n = 8 * COLS
     hi = rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32)
     lo = rng.integers(0, 5000, n, dtype=np.uint64).astype(np.uint32)
     hi[-1500:] = 0xFFFFFFFF
@@ -56,7 +53,7 @@ def test_sort_pairs_kmer_shaped_keys(rng):
 
 
 def test_sort_pairs_adversarial_orders(rng):
-    n = 4 * sort.BITONIC_COLS
+    n = 4 * COLS
     asc = np.arange(n, dtype=np.uint32)
     _check(asc[::-1].copy(), asc.copy())          # descending hi
     _check(np.zeros(n, np.uint32), asc[::-1].copy())  # ties on hi
@@ -76,8 +73,9 @@ def test_sort_pairs_rejects_bad_dtypes():
         )
     with pytest.raises(TypeError):
         sort.sort_pairs(jnp.zeros(8, jnp.uint32), jnp.zeros(9, jnp.uint32))
-    with pytest.raises(ValueError, match="prefer"):
-        sort.sort_pairs(
-            jnp.zeros(8, jnp.uint32), jnp.zeros(8, jnp.uint32),
-            prefer="bionic",
-        )
+    # 2-D keys sort as their flattened streams
+    hs, ls = sort.sort_pairs(
+        jnp.asarray([[3, 1], [2, 1]], jnp.uint32), jnp.asarray([[0, 9], [5, 2]], jnp.uint32)
+    )
+    assert np.asarray(hs).tolist() == [1, 1, 2, 3]
+    assert np.asarray(ls).tolist() == [2, 9, 5, 0]

@@ -8,8 +8,8 @@ framework — spec.py — so kernels and oracle must agree on all 256 bytes).
 import numpy as np
 import pytest
 
-from cute_nucleotides_tpu import api
-from cute_nucleotides_tpu.ops import oracle
+from cute_nucleotides_jax import api
+from cute_nucleotides_jax.ops import oracle
 
 from test_oracle import GOLDEN_2BIT_32, GOLDEN_B5_35, SEQ32, SEQ35
 
